@@ -1,12 +1,12 @@
-"""mpm_flip98a_tpu — a TPU-native Material Point Method framework.
+"""mpm_flip98a_tpu — a JAX Material Point Method framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
+A ground-up JAX/XLA re-design of the capabilities of the reference
 repo `jeddiot/MPM-FLIP98A` (a stabilized MPM solver for free-surface flow):
 
 - `config`    — physical + numerical configuration (reference: config.py)
 - `state`     — pure-functional particle/grid state pytrees (reference: fields.py)
-- `ops`       — transfer stencils (P2G/G2P), grid updates, 2x2/3x3 decompositions,
-                cell binning, and Pallas TPU kernels
+- `ops`       — transfer stencils (P2G/G2P) for dense particles and for
+                bucket slots, 2x2/3x3 decompositions, row binning
 - `models`    — material models (fixed corotated, neo-Hookean, weakly-compressible
                 fluid) and the assembled MLS-MPM / stabilized-MPM substep pipelines
 - `parallel`  — multi-chip domain decomposition: grid sharding over a
@@ -19,8 +19,8 @@ repo `jeddiot/MPM-FLIP98A` (a stabilized MPM solver for free-surface flow):
 Design: everything in the hot path is jit-compiled, statically shaped and
 functional.  Substeps are batched on-device with `jax.lax.fori_loop` so host
 overhead never appears (the reference runs 10,000 substeps per frame,
-exec.py:21).  Multi-chip scaling uses `shard_map` + XLA collectives over ICI,
-not host-side communication.
+exec.py:21).  Multi-chip scaling uses `shard_map` + XLA collectives, not
+host-side communication.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native MPM framework.
+"""Configuration for the MPM framework.
 
 Mirrors the parameter surface of the reference's ``config.py``
 (reference: config.py:4-46) — the physical constants, the six feature
@@ -81,7 +81,7 @@ class Physics:
 
 @dataclasses.dataclass(frozen=True)
 class MPMConfig:
-    """Numerical settings (reference: config.py:15-46) plus TPU-side knobs.
+    """Numerical settings (reference: config.py:15-46) plus framework-side knobs.
 
     The reference's boolean switch set is the feature matrix
     (SURVEY.md section 5): APIC/PIC (config.py:18), F-bar (:19), penalty

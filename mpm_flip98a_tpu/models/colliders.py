@@ -8,7 +8,7 @@ surfaces, constant surface velocity (conveyor) / angular velocity
 (spinner) boundary conditions, and optional kinematic translation of the
 geometry itself (center_velocity; see the Collider docstring).
 
-TPU-first design: collision acts on GRID velocities (the classic MPM
+Design: collision acts on GRID velocities (the classic MPM
 grid-collision treatment), which is a pure elementwise projection over
 node planes — no particle-side branching, no scatter, and it works
 unchanged on slab-sharded buffers because it is pointwise (callers pass
@@ -55,7 +55,7 @@ class Collider:
                 collider): at simulation time t the effective center is
                 center + center_velocity * t, and the surface velocity
                 gains + center_velocity so material is carried, not
-                tunnelled through.  Callers thread t (run()'s t0 + i dt)
+                passed through.  Callers thread t (run()'s t0 + i dt)
                 into project()/inside_any(); t=None keeps the collider
                 static regardless.
     """

@@ -28,8 +28,8 @@ Materials:
 
 Mixed scenes dispatch on a per-particle ``material`` id
 (reference: fields.py:12) with `jnp.where` selects — all materials are
-evaluated vectorized and blended, which on TPU is far cheaper than
-divergent control flow.
+evaluated vectorized and blended, which on a vector machine is far cheaper
+than divergent control flow.
 """
 
 from __future__ import annotations
@@ -97,8 +97,8 @@ def fluid_pressure(params: MaterialParams, j_bar: jax.Array) -> jax.Array:
 
     The Tait power is guarded against transiently non-positive J (splashy
     free-surface particles can momentarily invert): (1/J)^gamma on J <= 0
-    is a NaN channel.  Same floor as the fused kernels
-    (ops/pallas/transfer2d.py j_safe) so general and fast paths agree.
+    is a NaN channel.  Same floor as the fast paths' component-form
+    stress (models/fast2d.py j_safe) so general and fast paths agree.
     """
     k = jnp.asarray(params.bulk_modulus, j_bar.dtype)
     if params.eos == EOSKind.LINEAR:

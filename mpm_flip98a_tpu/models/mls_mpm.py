@@ -1,4 +1,4 @@
-"""JAX MLS-MPM validation model: the TPU build of the reference C++ solver.
+"""JAX MLS-MPM validation model: the JAX build of the reference C++ solver.
 
 Reference: cpp_validation/mls-mpm88-explained.cpp:49-180.  Same pipeline —
 P2G scatter of mass/momentum with the fused APIC + MLS-MPM stress affine

@@ -92,9 +92,8 @@ def project_planes(
     solid_extra: jax.Array | None = None,
 ):
     """Plane-form core: vs is a tuple of d velocity-component arrays, each
-    shaped like `g_m` (axis a of the array <-> component a).  Avoids the
-    (..., d) trailing-dim layout on the fast path's (R, G) channel planes
-    (small trailing dims pad to 128 lanes on TPU).
+    shaped like `g_m` (axis a of the array <-> component a), the form the
+    fast paths' grid updates hold their (R, G) / (G0, G1, G2) planes in.
 
     `lo`/`hi` are the wall node thresholds (PAD, G-1-PAD) in GLOBAL node
     indices: nodes at or beyond them along any axis are SOLID.  Sharded:

@@ -1,6 +1,6 @@
 """The stabilized MPM free-surface flow solver — the framework's flagship.
 
-This is the TPU-native reconstruction of the reference's withheld core
+This is the JAX reconstruction of the reference's withheld core
 module `functionsConfidential.py` (absent by policy, reference:
 README.md:23-25, .gitignore:6).  Its behaviour is rebuilt from the field
 declarations (fields.py:4-51), the config switch set (config.py:15-46), the
@@ -48,8 +48,7 @@ Pipeline per substep (SURVEY.md section 2.3 reconstruction):
 Everything is one jit region per substep; `run_frames` batches the
 reference's 10,000 substeps/frame (exec.py:21) in a `lax.fori_loop`.
 
-Design notes on the reconstruction (these choices are ours, made
-TPU-first; the reference's exact withheld formulas are unpublished):
+Design notes on the reconstruction (these choices are ours; the reference's exact withheld formulas are unpublished):
   - Pressure comes from an EOS on the F-bar volume ratio; the "mixed"
     pressure blends a grid-projected (hence smoothed) pressure with the
     pointwise one, the standard cure for checkerboard pressure noise in
@@ -125,7 +124,7 @@ class GridContext:
     - slab domain decomposition : slab-local buffers; `base_shift` maps
       global stencil bases into the local buffer, `row_index0` carries the
       global node row ids for wall masks, and reduce = halo-reduce +
-      halo-gather over ICI (parallel/domain.py)
+      halo-gather (parallel/domain.py)
 
     The physics below is written once against this context; the strategies
     only swap buffers and reductions.
@@ -231,18 +230,23 @@ def fbar_jbar(
     return jnp.where(den > 0, num / jnp.where(den > 0, den, 1.0), p.J)
 
 
-def _axis_indices(cfg: MPMConfig, grid_shape, row_index0=None):
+def _axis_indices(cfg: MPMConfig, grid_shape, row_index0=None, row_index1=None):
     """Per-axis global node indices of a (possibly slab-local) grid buffer.
 
-    `row_index0` overrides axis 0 with global indices when the grid is a
-    local slab of a domain-decomposed run (parallel/domain.py)."""
+    `row_index0` / `row_index1` override axes 0 / 1 with global indices
+    when the grid is a local window of a domain-decomposed run
+    (parallel/domain.py, parallel/fast_domain3d.py)."""
     idx = [jnp.arange(s) for s in grid_shape]
     if row_index0 is not None:
         idx[0] = row_index0
+    if row_index1 is not None:
+        idx[1] = row_index1
     return idx
 
 
-def _wall_normal_diag(cfg: MPMConfig, dtype, grid_shape=None, row_index0=None) -> jax.Array:
+def _wall_normal_diag(
+    cfg: MPMConfig, dtype, grid_shape=None, row_index0=None, row_index1=None
+) -> jax.Array:
     """sum_walls n (x) n at every node, as its diagonal (axis-aligned walls
     => the penalty matrix is diagonal).  Shape (G..., d).
 
@@ -253,7 +257,7 @@ def _wall_normal_diag(cfg: MPMConfig, dtype, grid_shape=None, row_index0=None) -
     g = cfg.num_grids
     grid_shape = grid_shape or (g,) * cfg.dim
     lo, hi = int(PAD), g - 1 - int(PAD)
-    axis_idx = _axis_indices(cfg, grid_shape, row_index0)
+    axis_idx = _axis_indices(cfg, grid_shape, row_index0, row_index1)
     diag = []
     for a in range(cfg.dim):
         on_wall = (axis_idx[a] <= lo) | (axis_idx[a] >= hi)
@@ -264,7 +268,8 @@ def _wall_normal_diag(cfg: MPMConfig, dtype, grid_shape=None, row_index0=None) -
 
 
 def _apply_wall_bc(
-    v: jax.Array, cfg: MPMConfig, wall: WallBC, grid_shape=None, row_index0=None
+    v: jax.Array, cfg: MPMConfig, wall: WallBC, grid_shape=None, row_index0=None,
+    row_index1=None,
 ) -> jax.Array:
     """Slip/sticky walls on the padded band (non-penalty path).
 
@@ -275,7 +280,7 @@ def _apply_wall_bc(
     g = cfg.num_grids
     grid_shape = grid_shape or (g,) * cfg.dim
     lo, hi = int(PAD), g - 1 - int(PAD)
-    axis_idx = _axis_indices(cfg, grid_shape, row_index0)
+    axis_idx = _axis_indices(cfg, grid_shape, row_index0, row_index1)
     for a in range(cfg.dim):
         shape = [1] * cfg.dim
         shape[a] = grid_shape[a]
@@ -318,8 +323,8 @@ def _csf_force(
     from the interface (|n| below 1% of the global max) contribute
     nothing — this also kills the B-spline deposition ripple that
     survives the smoothing.  EXTENSION beyond the reference's switch set
-    (config.py:18-29).  Dim-agnostic; also consumed by BOTH Pallas fast
-    paths on their fold-buffer mass planes (fast2d/fast3d grid updates),
+    (config.py:18-29).  Dim-agnostic; also consumed by BOTH fast
+    paths on their P2G mass planes (fast2d/fast3d grid updates),
     single-device and sharded.
 
     Slab decomposition (ctx.axis set): every derivative in the chain

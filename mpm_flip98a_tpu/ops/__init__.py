@@ -1,2 +1,2 @@
-"""Compute ops: transfer stencils, small-matrix math, grid updates, binning,
-and Pallas TPU kernels."""
+"""Compute ops: transfer stencils, small-matrix math, grid updates and
+row binning."""

@@ -1,35 +1,25 @@
-"""Row-bucketed particle layout for the Pallas transfer kernels.
+"""Row-bucketed particle layout of the fast paths.
 
-XLA's scatter/gather on TPU processes ~1e8 updates/s — 20x short of the
-1e9 transfer-ops/s target (measured, see bench history).  The TPU-native
-answer is to restructure the transfer as dense MXU work: particles are
-bucketed by their stencil base row (grid axis 0), one fixed-capacity bucket
-of K slots per grid row, so the Pallas kernels (ops/pallas/) can process
-"one grid row of particles" per program and turn the column scatter/gather
-into one-hot matrix products.  (This is the TPU analogue of the reference's
-cell-sorted GPU scatter strategy discussed in SURVEY.md section 7.)
+Particles are bucketed by their stencil base row (grid axis 0; in 3D by
+their (axis 0, axis 1) pencil), one fixed-capacity bucket of K slots per
+row.  A slab-sharded run owns whole bucket rows, so the layout is what
+lets each device hold exactly its slab's particles.
 
 The bucketed layout is the persistent state of the fast path.  Because a
-substep moves particles by << 1 cell (CFL), and the kernels tolerate a
-+-1-row drift margin, `bucket_by_row` only needs to run when some particle
-approaches the margin — the fast path triggers it adaptively (hundreds of
-substeps apart), so its cost amortises to noise.
+substep moves particles by << 1 cell (CFL), and the slab halo window
+tolerates a +-1-row drift margin, `bucket_by_row` only needs to run when
+some particle approaches the margin — the fast path triggers it
+adaptively (hundreds of substeps apart), so its cost amortises.
 
-Implementation notes, all performance-measured on v5e:
+Implementation notes:
 - ranks within a row come from one `cummax` scan over the sorted keys
-  (`searchsorted` lowers to a 300+ ms binary-search loop — never use it in
-  a hot path);
+  (`searchsorted` lowers to a binary-search loop — never use it in a hot
+  path);
 - fields move as ONE stacked (S, n_fields) uint32 GATHER through the
-  inverse permutation, not per-field scatters: the ~1e8/s TPU
-  scatter/gather rate is per-INDEX, so 20 per-field moves pay the index
-  processing 20x.  Measured at 1M slots on v5e-1 (2026-08-19,
-  docs/measurements/r5_micro_rebucket.log): 20 scatters 142.7 ms, one
-  stacked (S, 20) scatter 122.5 ms, one stacked gather **41.5 ms**
-  (all incl. ~24 ms sync floor; bit-exact vs per-field).  The earlier
-  "take costs ~2x a unique scatter" lore holds per-FIELD — stacking
-  inverts it.  All bucket fields are 4-byte, so they stack losslessly
-  as uint32 bit patterns (bitcast_convert_type; moves copy bits, no
-  arithmetic).
+  inverse permutation, not per-field scatters: index processing is paid
+  once instead of once per field.  All bucket fields are 4-byte, so they
+  stack losslessly as uint32 bit patterns (bitcast_convert_type; moves
+  copy bits, no arithmetic).
 
 All shapes static: (R, K) slot arrays + validity mask; bucket overflow is
 counted, never silently dropped.
@@ -82,8 +72,8 @@ def bucket_by_row(
 
     # Invert the (sorted position -> slot) assignment into slot -> source:
     # one int32 scatter builds the map, then ALL fields + mask move in a
-    # single stacked (S, n_fields + 1) uint32 gather (see module notes —
-    # 20 per-field scatters cost ~3.4x this at 1M slots).  Unfilled slots
+    # single stacked (S, n_fields + 1) uint32 gather (see module notes).
+    # Unfilled slots
     # keep index s, gathering the zero sentinel row: identical zero-fill
     # (and mask=False) to the old per-field scatter.
     src_of_slot = (

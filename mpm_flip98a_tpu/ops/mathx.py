@@ -1,6 +1,6 @@
 """Closed-form small-matrix decompositions, vectorized over leading axes.
 
-TPU-native replacement for the reference's scalar C++ routines
+JAX replacement for the reference's scalar C++ routines
 (reference: cpp_validation/taichi.h:8375-8419 — 2D polar decomposition and
 the 2x2 SVD of Jiang et al., "Algorithm 4").  These run inside the fused
 G2P/P2G kernels, so they are written as branch-free `jnp` expressions
@@ -22,10 +22,10 @@ import jax.numpy as jnp
 def mm(a: jax.Array, b: jax.Array) -> jax.Array:
     """Batched small-matrix product at full fp32/fp64 precision.
 
-    On TPU, `a @ b` in fp32 defaults to bf16 MXU passes; for d x d (d = 2, 3)
-    per-particle matrices that destroys the <= 1e-5 oracle agreement, so all
-    hot-path matrix products go through here with precision='highest'
-    (XLA keeps these tiny contractions on the VPU)."""
+    An fp32 `a @ b` at default precision may run in reduced precision
+    (TF32 on a GPU's tensor cores); for d x d (d = 2, 3) per-particle
+    matrices that destroys the <= 1e-5 oracle agreement, so all hot-path
+    matrix products go through here with precision='highest'."""
     return jnp.einsum("...ab,...bc->...ac", a, b, precision="highest")
 
 
@@ -134,7 +134,7 @@ def polar_decomp_3d(m: jax.Array, iters: int = 12) -> Tuple[jax.Array, jax.Array
     R_{k+1} = (gamma R_k + gamma^{-1} R_k^{-T}) / 2, which converges
     quadratically for the deformation gradients MPM produces (near identity,
     positive determinant).  Branch-free and fixed-trip-count so it fuses
-    under jit/Pallas.
+    under jit.
     """
     r = m
     for _ in range(iters):

@@ -81,7 +81,7 @@ class DomainSpec:
     def for_scene(cfg: MPMConfig, n_shards: int, n_particles: int, headroom: float = 2.0) -> "DomainSpec":
         rows = -(-cfg.num_grids // n_shards)
         cap = max(64, int(headroom * -(-n_particles // n_shards)))
-        # Round capacity up for good TPU layout.
+        # Round capacity up to a multiple of 64.
         cap = -(-cap // 64) * 64
         return DomainSpec(
             n_shards=n_shards,
@@ -209,7 +209,7 @@ def migrate(
     axis: str,
 ) -> Tuple[Particles, jax.Array]:
     """Move particles whose base row left the owned slab to the neighbor
-    shard (fixed-capacity ragged all-to-all over ICI; SURVEY.md 2.7)."""
+    shard (fixed-capacity ragged all-to-all; SURVEY.md 2.7)."""
     cfg = scene.cfg
     n, L, M = spec.n_shards, spec.rows_per_shard, spec.mig_cap
     s = jax.lax.axis_index(axis)

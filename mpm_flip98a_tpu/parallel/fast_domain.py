@@ -1,16 +1,16 @@
-"""Slab-sharded execution of the Pallas fast path (2D).
+"""Slab-sharded execution of the bucketed fast path (2D).
 
 The scalable multi-chip production path: the grid's row axis is sliced
 into slabs, one per chip on a 1D mesh, and — because the fast path's
 bucket axis IS the grid row axis — each chip simply owns the bucket rows
-of its slab.  The Pallas kernels run unchanged on the local (L, K) bucket
+of its slab.  The transfers run unchanged on the local (L, K) bucket
 window; only two things cross chips, both O(halo), not O(grid):
 
-  1. Grid halo exchange, once per substep: the P2G fold keeps its edge
-     target rows (fold_rows_halo: 1 row below the slab, 3 above, from the
-     +-1-bucket drift margin x 3-tap stencil) and trades them with the
-     neighbors — partial sums reduce in, completed rows gather back
-     (ppermute over ICI, same pattern as parallel/domain.halo_reduce/
+  1. Grid halo exchange, once per substep: the P2G scatter keeps its edge
+     target rows (an (L + 4)-row buffer: 1 row below the slab, 3 above,
+     from the +-1-bucket drift margin x 3-tap stencil) and trades them
+     with the neighbors — partial sums reduce in, completed rows gather
+     back (ppermute, same pattern as parallel/domain.halo_reduce/
      halo_gather for the general path).  After the sync all L + 4 local
      rows hold global sums, so the grid update and G2P are local.
   2. Particle migration, only on rebucket events (every few hundred
@@ -41,7 +41,7 @@ from mpm_flip98a_tpu.models.stabilized import PAD, Scene
 from mpm_flip98a_tpu.ops import binning
 from mpm_flip98a_tpu.parallel.domain import _perm_left, _perm_right
 
-# Halo rows of the folded P2G output: bucket row r scatters to target rows
+# Halo rows of the P2G buffer: bucket row r scatters to target rows
 # r - 1 .. r + 3 (rel in {-1, 0, 1} drift x 3-tap stencil), so a slab's
 # buffer carries 1 row below and 3 above its L owned rows.
 H_LO, H_HI = 1, 3
@@ -67,10 +67,7 @@ class FastDomainSpec:
         occ = int(
             np.bincount(np.clip(row, 0, cfg.num_grids - 1), minlength=cfg.num_grids).max()
         )
-        cap = max(128, -(-int(headroom * occ) // 128) * 128)
-        if cap > 1024:
-            nc = -(-cap // 1024)
-            cap = -(-cap // (128 * nc)) * (128 * nc)
+        cap = fast2d.capacity_for(occ, headroom)
         return FastDomainSpec(
             n_shards=n_shards,
             rows_per_shard=rows,
@@ -87,7 +84,7 @@ class FastDomainCtx:
     n: int
 
     def halo_sync(self, buf: jax.Array) -> jax.Array:
-        """(L + 4, nch, G) row-leading folded sums -> globally complete rows.
+        """(L + 4, G, nch) row-leading P2G sums -> globally complete rows.
 
         Reduce: edge partial sums into the owning neighbor's interior;
         gather: completed interior edge rows back into the halos.  Edge
@@ -187,8 +184,8 @@ def rebucket_migrate(
         jnp.floor(cat[0] * inv_dx + jnp.float32(PAD) - 0.5).astype(jnp.int32) - lo
     )
     # Guard the one-shard-hop assumption: an arrival still outside [0, l)
-    # would be silently clipped into the edge bucket (outside the kernels'
-    # +-1-row validity margin) — count it as overflow instead.
+    # would be silently clipped into the edge bucket (outside the halo
+    # window's +-1-row margin) — count it as overflow instead.
     hop_drop = jnp.sum(
         jnp.where(act & ((row_local < 0) | (row_local >= l)), 1, 0)
     ).astype(jnp.int32)

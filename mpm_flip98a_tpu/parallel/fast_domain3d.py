@@ -1,4 +1,4 @@
-"""Slab- and block-sharded execution of the 3D Pallas fast path.
+"""Slab- and block-sharded execution of the 3D bucketed fast path.
 
 3D counterpart of parallel/fast_domain.py, in one or two mesh axes:
 
@@ -7,20 +7,19 @@
   rows is a contiguous block of buckets).
 - 2-axis (slabs x pencil columns, BASELINE configs[4] pod-scale shapes):
   axis 1 is sliced as well — each shard owns an (L0 x L1) window of
-  pencil buckets.  The P2G kernels emit the axis-1 halo plane
-  (transfer3d halo1 mode) so edge writes ride the exchange instead of
-  being dropped, and the halo sync runs the same reduce/gather pattern
+  pencil buckets.  The P2G scatter writes an axis-1 halo plane as well,
+  so edge writes ride the exchange instead of being dropped, and the
+  halo sync runs the same reduce/gather pattern
   over both mesh axes in sequence (axis 0 first; its full-extent slabs
   carry the corner partial sums into the axis-1 legs, which completes
   diagonal-neighbor contributions without explicit corner messages).
 
-Per substep one halo exchange per sharded axis moves the 4 folded edge
-planes (1 below, 3 above) over ICI; particles migrate between shards
-only on collective rebucket events — axis-0 leg then axis-1 leg, so a
-corner-crossing particle reaches its diagonal neighbor in the same
-rebucket.  All fast-path kernel modes (fused fluid, generic
-multi-material, ext stabilization, penalty EBC) run unchanged on the
-local window — fast3d.substep(domain=...).
+Per substep one halo exchange per sharded axis moves the 4 edge planes
+(1 below, 3 above); particles migrate between shards only on collective
+rebucket events — axis-0 leg then axis-1 leg, so a corner-crossing
+particle reaches its diagonal neighbor in the same rebucket.  Every
+fast-path configuration (multi-material, ext stabilization, penalty EBC)
+runs unchanged on the local window — fast3d.substep(domain=...).
 """
 
 from __future__ import annotations
@@ -132,8 +131,8 @@ class FastDomain3DCtx:
     def halo_sync(self, buf: jax.Array) -> jax.Array:
         """Folded halo sums -> globally complete planes.
 
-        1-axis: buf (L0 + 4, G1, nch, G2), axis-0 sync only.  2-axis:
-        buf (L0 + 4, L1 + 4, nch, G2); the axis-0 legs move full slabs
+        1-axis: buf (L0 + 4, G1, G2, nch), axis-0 sync only.  2-axis:
+        buf (L0 + 4, L1 + 4, G2, nch); the axis-0 legs move full slabs
         INCLUDING the axis-1 halo columns, so corner contributions reach
         the diagonal owner through the subsequent axis-1 legs."""
         buf = _sync_dim(buf, self.axis0, self.n0, 0)
@@ -269,7 +268,7 @@ def rebucket_migrate(
     r1a = brow(flat[1]) - lo1
     # A particle that crossed MORE than one shard window between rebuckets
     # would be silently re-homed into the edge bucket by the clip below
-    # and sit outside the kernels' +-1-row validity margin — count it into
+    # and sit outside the halo window's +-1-row margin — count it into
     # the overflow counter so the one-shard-hop provisioning assumption is
     # guarded by the existing overflow == 0 test invariant.
     hop_drop = jnp.sum(

@@ -1,4 +1,4 @@
-"""Multi-chip execution of the Pallas fast path: particle data parallelism.
+"""Multi-chip execution of the bucketed fast path: particle data parallelism.
 
 LEGACY fallback — superseded by the slab-sharded fast paths
 (parallel/fast_domain.py / fast_domain3d.py), which move O(halo) bytes
@@ -14,13 +14,13 @@ where the domain-decomposed paths would rebucket; overflow is counted
 and surfaces through the overflow != 0 invariant, never silently.
 
 Each chip owns a round-robin share of the particles in its own full
-(R, K_local) bucket layout; the per-chip folded grid sums merge with one
-`psum` over ICI and everything else (grid update, G2P, rebucketing) runs
-per chip with zero further communication.  The Pallas kernels are
-unchanged — they run per shard inside `shard_map` on the local K axis.
+(R, K_local) bucket layout; the per-chip P2G grid sums merge with one
+`psum` and everything else (grid update, G2P, rebucketing) runs per chip
+with zero further communication.  The transfers are unchanged — they run
+per shard inside `shard_map` on the local K axis.
 
-Communication per substep = one all-reduce of the (ch, G, G) grid sums
-(6 MB at 512^2 fp32).
+Communication per substep = one all-reduce of the (G, G, ch) grid sums
+(5 MB at 512^2 fp32).
 """
 
 from __future__ import annotations
@@ -103,8 +103,7 @@ def make_run(scene: Scene, spec: fast2d.FastSpec, mesh: Mesh, axis: str = "x"):
 
             return jax.lax.fori_loop(0, n_substeps, body, bl)
 
-        # check_vma=False: Pallas out_shapes carry no varying-mesh-axes
-        # annotation, and everything here is trivially per-shard.
+        # check_vma=False: everything here is trivially per-shard.
         return jax.shard_map(
             local, mesh=mesh, in_specs=(in_spec,), out_specs=in_spec,
             check_vma=False,

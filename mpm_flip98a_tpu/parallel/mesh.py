@@ -15,9 +15,10 @@ def make_mesh(
     """1D device mesh over the grid-slab axis.
 
     MPM scales by spatial decomposition along one grid axis (SURVEY.md
-    section 2.7); a single ICI ring axis is the natural layout for up to
-    ~a dozen chips.  For pod-scale shapes use make_mesh2 (slabs x pencil
-    columns, parallel/fast_domain3d.py 2-axis mode).
+    section 2.7).  The mesh is a plain device list: the halo exchange
+    only talks to slab neighbours, and every device of one host reaches
+    every other at the same rate.  make_mesh2 adds pencil columns
+    (parallel/fast_domain3d.py 2-axis mode).
     """
     devs = jax.devices()
     if n_devices is not None:
@@ -30,8 +31,7 @@ def make_mesh2(
 ) -> Mesh:
     """2D device mesh (n0 x n1) for the two-axis 3D decomposition:
     axis 0 shards grid rows (slabs), axis 1 shards grid columns (pencil
-    columns).  On a TPU pod slice, lay n0 over the longer torus axis so
-    both halo exchanges ride ICI rings."""
+    columns).  The device order follows the decomposition alone."""
     devs = jax.devices()
     assert len(devs) >= n0 * n1, (len(devs), n0, n1)
     return Mesh(np.asarray(devs[: n0 * n1]).reshape(n0, n1), axis_names)

@@ -2,7 +2,7 @@
 
 Particles are sharded over the mesh along their leading axis; every chip
 runs the full substep against a local copy of the background grid, and the
-raw P2G sums are merged with one `jax.lax.psum` over ICI before the grid
+raw P2G sums are merged with one `jax.lax.psum` before the grid
 update.  The grid update and G2P then run redundantly on every chip —
 cheap, because grid work is O(G^dim) while particle work is O(N).
 
@@ -29,7 +29,7 @@ def pad_particles(p: Particles, multiple: int) -> Particles:
     Padding particles have zero mass and volume, so every scatter
     contribution vanishes; they sit mid-domain and advect harmlessly.
     Static shapes are non-negotiable under jit/shard_map, so capacity
-    padding + zero-weighting is the TPU-native way to handle ragged counts.
+    padding + zero-weighting is how ragged counts are handled.
     """
     n = p.n
     rem = (-n) % multiple

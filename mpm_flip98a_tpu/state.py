@@ -1,12 +1,12 @@
 """Pure-functional simulation state pytrees.
 
-The TPU-native replacement for the reference's mutable Taichi field groups
+The JAX replacement for the reference's mutable Taichi field groups
 (reference: fields.py:4-51).  Every field group becomes a frozen dataclass of
 `jnp` arrays registered as a JAX pytree, so whole states flow through `jit`,
 `lax.fori_loop`, `shard_map` and checkpointing untouched.
 
 Layout is structure-of-arrays with the leading axis = particle index (or grid
-node index), which is what the TPU vector units want; small per-particle
+node index), which is what vectorized kernels want; small per-particle
 matrices are trailing (..., d, d) axes.
 """
 

@@ -3,15 +3,17 @@
 Replaces the reference's native rasterizer + window stack — `Canvas`
 circle/rect drawing (taichi.h:16581-16920), the X11/Win32/Cocoa `GUI`
 (taichi.h:16923-17600) and the bundled stb_image_write (taichi.h:24860+) —
-with a small NumPy rasterizer and PIL encoding.  TPU hosts have no display;
-the reference itself runs headless (`show_gui=False`, exec.py:14), so only
-the frame files matter (the golden artifact is the dam-break GIF,
-README.md:29-31).
+with a small NumPy rasterizer and a standard-library PNG encoder.  The
+reference itself runs headless (`show_gui=False`, exec.py:14), so only the
+frame files matter.  GIF assembly (the reference's golden artifact,
+README.md:29-31) is the one part that needs Pillow.
 """
 
 from __future__ import annotations
 
 import os
+import struct
+import zlib
 from typing import Optional, Sequence
 
 import numpy as np
@@ -61,20 +63,35 @@ def rasterize(
     return img
 
 
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (
+        struct.pack(">I", len(data)) + tag + data
+        + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+    )
+
+
 def write_png(img: np.ndarray, path: str) -> None:
     """stb_image_write / Array2D::write_as_image equivalent
-    (taichi.h:30346-30390)."""
-    from PIL import Image
-
+    (taichi.h:30346-30390): 8-bit RGB, no filtering, zlib-deflated."""
+    h, w, _ = img.shape
+    rows = np.concatenate(
+        [np.zeros((h, 1), np.uint8), np.ascontiguousarray(img, np.uint8).reshape(h, w * 3)],
+        axis=1,
+    )
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    Image.fromarray(img).save(path)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
 
 
 def write_gif(
     frames: Sequence[np.ndarray], path: str, fps: int = 30
 ) -> None:
     """Assemble frames into a GIF — the reference's golden visual artifact
-    (output.gif, README.md:29-31; ffmpeg assembly mls-mpm88:235)."""
+    (output.gif, README.md:29-31; ffmpeg assembly mls-mpm88:235).  Needs
+    Pillow, and raises ImportError where it is missing."""
     from PIL import Image
 
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

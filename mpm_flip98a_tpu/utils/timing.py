@@ -2,9 +2,8 @@
 
 Replaces the reference's `Time::Timer` / `TickTimer` / `FPSCounter`
 (taichi.h:6098-6160) and the driver's end-of-run `Run Time` print
-(exec.py:10,31-32).  Additions the reference lacks: correct device sync
-for remote-dispatch backends (block_until_ready alone can return before
-remote execution finishes — sync by materialising a scalar), per-name
+(exec.py:10,31-32).  Additions the reference lacks: a hard device sync
+(materialising one scalar on the host), per-name
 accumulated statistics, and a `jax.profiler` trace context for Xprof.
 """
 

@@ -1,6 +1,6 @@
 // Native frame IO: point rasterizer + PNG encoder + legacy-binary VTK.
 //
-// TPU-native equivalent of the reference's native output stack — the
+// This framework's equivalent of the reference's native output stack — the
 // Canvas software rasterizer (cpp_validation/taichi.h:16581-16920), the
 // bundled stb_image_write PNG encoder (taichi.h:24860-26238, used via
 // Array2D::write_as_image :30346-30390), and the per-frame VTK particle

@@ -1,6 +1,6 @@
 // Native C++ MLS-MPM validation solver.
 //
-// The TPU framework's counterpart to the reference's native half — the
+// The framework's counterpart to the reference's native half — the
 // standalone C++ validation solver cpp_validation/mls-mpm88-explained.cpp
 // (2D MLS-MPM, fixed corotated + snow plasticity, fp32) and the math
 // routines it uses from the bundled legacy-taichi header (2D polar
@@ -12,7 +12,7 @@
 //
 // Role in the framework: a second, native ground truth.  The test suite
 // cross-validates three implementations per substep — this C++ solver, the
-// NumPy oracle (oracle/mls_mpm88_numpy.py) and the JAX/Pallas solvers —
+// NumPy oracle (oracle/mls_mpm88_numpy.py) and the JAX solvers —
 // the same cross-implementation QA strategy the reference uses
 // (README.md:27-35).
 //

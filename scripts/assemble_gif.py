@@ -3,12 +3,12 @@
 The reference's acceptance artifact is the dam-break GIF assembled from
 its frame dump (/root/reference/README.md:29-35, output.gif; ffmpeg
 assembly mls-mpm88-explained.cpp:235).  The CLI assembles in-process
-when run without --no-gif; this script does it post hoc from a PNG
-frame directory (e.g. the measurement campaign's endtoend leg, which
-runs --no-gif so the leg's wall time is pure simulation+IO).
+when run with --gif; this script does it post hoc from a PNG frame
+directory (e.g. a long run whose wall time should be pure
+simulation+IO).
 
 Usage:
-    python scripts/assemble_gif.py /tmp/endtoend_r5 docs/media/dam2d.gif \
+    python scripts/assemble_gif.py out/mov_dt1e-06_pointwise docs/media/dam2d.gif \
         [--stride 2] [--fps 30] [--scale 2]
 """
 

@@ -1,7 +1,7 @@
 """Measure the fp32 accumulation error budget (VERDICT r3 item 10).
 
 The reference's production dtype is f64 (/root/reference/config.py:17);
-the Pallas fast paths run fp32.  This script measures what fp32 actually
+the fast paths run fp32.  This script measures what fp32 actually
 costs: it advances the TRUE reference configuration (105^2, dt = 1e-6 —
 the scene of tests/test_golden_reference.py) in fp32 and fp64 through
 the PRE-CHAOTIC early-fall window, where trajectory differences ARE the

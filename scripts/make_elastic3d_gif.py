@@ -1,4 +1,4 @@
-"""3D elastic-in-fluid drop demo GIF (multi-material fast3d path on TPU).
+"""3D elastic-in-fluid drop demo GIF (multi-material fast3d path).
 
 A neo-Hookean block falls onto a fluid slab at 64^3; frames are the
 driver's material-colored orthographic projection.
@@ -29,7 +29,7 @@ def main():
     )
     sim = Simulation(p, scene, path="fast", out_dir=args.out, tag="elastic_drop3d")
     # Manual frame loop: skip VTK (the GIF is the artifact) — the frame
-    # bottleneck is the remote device->host pull + file IO, not compute.
+    # bottleneck is the device->host pull + file IO, not compute.
     from mpm_flip98a_tpu.utils import render
 
     for i in range(args.frames):

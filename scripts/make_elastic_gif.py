@@ -1,4 +1,4 @@
-"""Elastic-in-fluid drop demo GIF (multi-material fast path on TPU)."""
+"""Elastic-in-fluid drop demo GIF (multi-material fast path)."""
 
 import argparse
 import dataclasses

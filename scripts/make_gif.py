@@ -1,5 +1,5 @@
 """Produce the dam-break demo GIF (the reference's golden visual artifact,
-output.gif README.md:29-31) with the fast Pallas path on TPU.
+output.gif README.md:29-31) with the fast path.
 
     python scripts/make_gif.py [--frames 150] [--out docs]
 """

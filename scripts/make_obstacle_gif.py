@@ -4,7 +4,7 @@ kinematic box plow sweeps in from the right.
 
     python scripts/make_obstacle_gif.py [--frames 120] [--out docs]
 
-Runs on the default platform (TPU via the CLI path; pass --cpu for a
+Runs on the default platform (the accelerator when there is one; pass --cpu for a
 CPU render).  Uses the general path (colliders force the XLA grid
 update anyway) at a small grid so the CPU render stays minutes.
 """

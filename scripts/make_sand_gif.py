@@ -3,7 +3,7 @@ column loses its footing and flows into an angle-of-repose pile).
 
     python scripts/make_sand_gif.py [--frames 120] [--out docs]
 
-Runs on the default platform (TPU via the CLI path; pass --cpu for a
+Runs on the default platform (the accelerator when there is one; pass --cpu for a
 CPU render).
 """
 

@@ -3,7 +3,7 @@ plasticity — the block compacts into a pile instead of bouncing).
 
     python scripts/make_snow_gif.py [--frames 120] [--out docs]
 
-Runs on the default platform (TPU via the CLI path; pass
+Runs on the default platform (the accelerator when there is one; pass
 JAX_PLATFORMS=cpu + the conftest-style pin for a CPU render).
 """
 

@@ -2,7 +2,17 @@
 
 import os
 
+import pytest
+
+from mpm_flip98a_tpu import driver
 from mpm_flip98a_tpu.driver import main
+
+
+@pytest.fixture(autouse=True)
+def _no_persistent_cache(monkeypatch):
+    # main() turns on the process-wide persistent compilation cache; keep
+    # the test session off it (tests/test_utils_and_driver.py covers it).
+    monkeypatch.setattr(driver.compile_cache, "enable", lambda: None)
 
 
 def test_cli_end_to_end(tmp_path, capsys):
@@ -12,7 +22,6 @@ def test_cli_end_to_end(tmp_path, capsys):
             "--frames", "1",
             "--substeps", "5",
             "--out", str(tmp_path),
-            "--no-gif",
             "--checkpoint", str(tmp_path / "end.npz"),
         ]
     )
@@ -29,11 +38,11 @@ def test_cli_resume(tmp_path, capsys):
     ck = str(tmp_path / "ck.npz")
     main(
         ["--scenario", "dam2d_flip98", "--frames", "1", "--substeps", "5",
-         "--out", str(tmp_path), "--no-gif", "--checkpoint", ck]
+         "--out", str(tmp_path), "--checkpoint", ck]
     )
     main(
         ["--scenario", "dam2d_flip98", "--frames", "1", "--substeps", "5",
-         "--out", str(tmp_path / "resumed"), "--no-gif", "--resume", ck]
+         "--out", str(tmp_path / "resumed"), "--resume", ck]
     )
     assert "Run Time:" in capsys.readouterr().out
     # The restored frame counter must CONTINUE the numbering: the first
@@ -56,7 +65,7 @@ def test_cli_multidevice_fast(tmp_path, capsys):
     main(
         ["--scenario", "dam2d_flip98", "--path", "fast", "--devices", "4",
          "--frames", "2", "--substeps", "3", "--out", str(tmp_path),
-         "--no-gif", "--checkpoint-every", "1", "--checkpoint", ck]
+         "--checkpoint-every", "1", "--checkpoint", ck]
     )
     out = capsys.readouterr().out
     assert "Run Time:" in out
@@ -67,7 +76,7 @@ def test_cli_multidevice_fast(tmp_path, capsys):
     main(
         ["--scenario", "dam2d_flip98", "--path", "fast", "--devices", "4",
          "--frames", "1", "--substeps", "3",
-         "--out", str(tmp_path / "resumed"), "--no-gif", "--resume", ck]
+         "--out", str(tmp_path / "resumed"), "--resume", ck]
     )
     assert "Run Time:" in capsys.readouterr().out
 
@@ -78,7 +87,7 @@ def test_cli_incompressible_fast_sharded(tmp_path, capsys):
     main(
         ["--scenario", "dam2d_incompressible", "--path", "fast",
          "--devices", "4", "--frames", "1", "--substeps", "5",
-         "--out", str(tmp_path), "--no-gif"]
+         "--out", str(tmp_path)]
     )
     out = capsys.readouterr().out
     assert "Run Time:" in out
@@ -89,8 +98,7 @@ def test_cli_incompressible_fast_sharded(tmp_path, capsys):
 def test_cli_incompressible_fast_single(tmp_path, capsys):
     main(
         ["--scenario", "dam2d_incompressible", "--path", "fast",
-         "--frames", "1", "--substeps", "5", "--out", str(tmp_path),
-         "--no-gif"]
+         "--frames", "1", "--substeps", "5", "--out", str(tmp_path)]
     )
     assert "Run Time:" in capsys.readouterr().out
 
@@ -103,14 +111,14 @@ def test_cli_two_axis_mesh_3d(tmp_path, capsys):
     main(
         ["--scenario", "dam3d", "--path", "fast", "--devices", "2x4",
          "--frames", "1", "--substeps", "3", "--out", str(tmp_path),
-         "--no-gif", "--checkpoint", ck]
+         "--checkpoint", ck]
     )
     assert "Run Time:" in capsys.readouterr().out
     assert os.path.exists(ck)
     main(
         ["--scenario", "dam3d", "--path", "fast", "--devices", "2x4",
          "--frames", "1", "--substeps", "3",
-         "--out", str(tmp_path / "resumed"), "--no-gif", "--resume", ck]
+         "--out", str(tmp_path / "resumed"), "--resume", ck]
     )
     assert "Run Time:" in capsys.readouterr().out
 
@@ -122,14 +130,14 @@ def test_cli_orbax_sharded_checkpoint(tmp_path, capsys):
     main(
         ["--scenario", "dam2d_flip98", "--path", "fast", "--devices", "4",
          "--frames", "1", "--substeps", "3", "--out", str(tmp_path),
-         "--no-gif", "--checkpoint", ck]
+         "--checkpoint", ck]
     )
     assert "Run Time:" in capsys.readouterr().out
     assert os.path.isdir(ck) and os.path.exists(ck + ".meta.json")
     main(
         ["--scenario", "dam2d_flip98", "--path", "fast", "--devices", "4",
          "--frames", "1", "--substeps", "3",
-         "--out", str(tmp_path / "resumed"), "--no-gif", "--resume", ck]
+         "--out", str(tmp_path / "resumed"), "--resume", ck]
     )
     assert "Run Time:" in capsys.readouterr().out
     # Frame numbering continues across the Orbax resume.

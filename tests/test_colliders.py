@@ -12,7 +12,6 @@ single-device equality.
 import dataclasses
 
 import numpy as np
-import pytest
 import jax.numpy as jnp
 
 from mpm_flip98a_tpu.config import MPMConfig, TransferKind
@@ -131,19 +130,9 @@ def _sorted_xy(h):
     return x[np.lexsort((x[:, 1], x[:, 0]))]
 
 
-@pytest.mark.parametrize("p2g_grid", ["0", "1"])
-def test_collider_fast_matches_general_2d(monkeypatch, request, p2g_grid):
-    # Both pipelines must apply the collider BC: "1" = in-kernel epilogue
-    # (transfer2d._p2g_grid_kernel), "0" = XLA _grid_update2d projection
-    # (the default since the r4 bench A/B flipped it).  The knob is read
-    # at TRACE time inside jitted run(), and the jit cache does not key
-    # on env — clear caches on entry and exit so neither this test nor
-    # its successors inherit a stale-knob trace.
-    import jax
-
-    jax.clear_caches()
-    request.addfinalizer(jax.clear_caches)
-    monkeypatch.setenv("MPM_P2G_GRID", p2g_grid)
+def test_collider_fast_matches_general_2d():
+    # The fast path's XLA grid update (_grid_update2d) applies the same
+    # collider projection as the general path.
     p, scene, spec, b = _obstacle_setup()
     b1 = fast2d.substep(b, scene)
     p1 = substep_ref(p, scene)
@@ -581,9 +570,9 @@ def test_collider_fast_matches_general_3d():
 
 def test_kinematic_collider_fast_matches_general_3d():
     # A rising sphere pushes through the settled slab: exercises the
-    # IN-KERNEL kinematic collider path (transfer3d._p2g3d_grid_kernel
-    # with the SMEM time operand) against the general XLA path, which
-    # threads the same t = t0 + i dt through stabilized.run.
+    # fast path's kinematic collider (fast3d._grid_update with the
+    # traced time) against the general XLA path, which threads the same
+    # t = t0 + i dt through stabilized.run.
     from mpm_flip98a_tpu.models import fast3d
 
     p, scene = scenes.slab_3d(

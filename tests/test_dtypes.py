@@ -1,7 +1,7 @@
 """Dtype coverage: the general path must run in f32, f64 and bf16.
 
-The reference's production dtype is ti.f64 (config.py:17); bf16 is the
-TPU-native extra — physics is rough at 8 mantissa bits but must stay
+The reference's production dtype is ti.f64 (config.py:17); bf16 is an
+extra — physics is rough at 8 mantissa bits but must stay
 finite and bounded (useful for throughput-mode previews)."""
 
 import numpy as np

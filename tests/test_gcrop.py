@@ -1,14 +1,12 @@
-"""Lane-width crop (fast2d.kernel_cols) correctness.
+"""Column crop (fast2d.kernel_cols) correctness.
 
 At num_grids = 128 m + 1 (the headline 513, the sharded-bench 129) the
-fast path runs its Pallas kernels and grid planes at num_grids - 1
-columns: Mosaic pads the lane dim to multiples of 128, so the extra "+1"
-column costs a full lane tile in every (K, G) VPU op and MXU pass
-(513 -> 640 lanes).  The crop is exact because the wall band keeps every
-stencil tap off the last grid column, with substep clipping the transfer
-coordinate of any wall-penetrating outlier — these tests pin that at
-three levels: kernel (equal outputs, zero dropped column, penetrator
-mass conservation), end-to-end vs the general XLA path, and sharded vs
+fast path runs its grid planes at num_grids - 1 columns.  The crop is
+exact because the wall band keeps every stencil tap off the last grid
+column, with substep clipping the transfer coordinate of any
+wall-penetrating outlier — these tests pin that at three levels:
+transfer (equal outputs, zero dropped column, penetrator mass
+conservation), end-to-end vs the general XLA path, and sharded vs
 single-device.
 """
 
@@ -17,10 +15,10 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 
-from mpm_flip98a_tpu.config import MPMConfig, TransferKind
+from mpm_flip98a_tpu.config import KernelKind, MPMConfig, TransferKind
 from mpm_flip98a_tpu.models import fast2d, scenes
 from mpm_flip98a_tpu.models.stabilized import PAD, run as run_ref
-from mpm_flip98a_tpu.ops.pallas import transfer2d as tk
+from mpm_flip98a_tpu.ops import transfer
 
 CROP = MPMConfig(
     dtype="float32",
@@ -34,56 +32,55 @@ CROP = MPMConfig(
 
 
 def test_kernel_cols_rule():
-    # Crop only when it saves a lane tile: num_grids = 128 m + 1.
+    # Crop only at num_grids = 128 m + 1.
     for g, want in ((129, 128), (513, 512), (257, 256), (105, 105), (37, 37)):
         cfg = dataclasses.replace(CROP, num_grids=g)
         assert fast2d.kernel_cols(cfg) == want, (g, want)
 
 
-def _synthetic_pdata(rng, r, k, g, nval):
-    """Random bucketed pdata whose columns stay inside the wall band
-    (gx1 in [PAD, g - 1 - PAD]), rows centered on their bucket."""
-    counts = np.full((r,), k // 2, np.int32)
+def _synthetic_slots(rng, r, k, g, nval):
+    """Random bucketed slots whose columns stay inside the wall band
+    (gx1 in [PAD, g - 1 - PAD]), rows centered on their bucket; the
+    second half of every bucket is dead."""
     gx0 = (
         np.repeat(np.arange(r, dtype=np.float32)[:, None], k, 1)
         + rng.uniform(0.45, 0.55, (r, k)).astype(np.float32)
     )
     gx1 = rng.uniform(float(PAD), float(g - 1 - PAD), (r, k)).astype(np.float32)
-    mask = (np.arange(k)[None, None, :] < counts[:, None, None]).astype(np.float32)
-    vals = rng.normal(size=(r, nval, k)).astype(np.float32) * mask
-    pdata = np.concatenate([gx0[:, None], gx1[:, None], vals], axis=1)
-    return jnp.asarray(pdata), jnp.asarray(counts)
+    live = np.arange(k)[None, :] < k // 2
+    vals = rng.normal(size=(nval, r, k)).astype(np.float32)
+    st = transfer.slot_stencil(
+        (jnp.asarray(gx0), jnp.asarray(gx1)),
+        jnp.asarray(np.broadcast_to(live, (r, k))),
+        KernelKind.BSPLINE,
+    )
+    return st, [jnp.asarray(v) for v in vals]
 
 
 def test_p2g_cropped_width_exact():
-    # The dense one-hot W has exact zeros outside each particle's 3-tap
-    # support, so dropping the last (massless) column leaves every other
-    # output column mathematically identical (XLA's dot may retile per
-    # matrix width, so equality holds to fp32 reassociation level, not
-    # bitwise) and the dropped column must be exactly zero.
+    # Every tap lies inside the wall band, so the cropped grid holds
+    # exactly the same sums and the dropped column is exactly zero.
     rng = np.random.default_rng(0)
     r, k, g = 12, 128, 129
-    pdata, counts = _synthetic_pdata(rng, r, k, g, 12)
-    full = np.asarray(tk.p2g(pdata, counts, g, 1.0))
-    crop = np.asarray(tk.p2g(pdata, counts, g - 1, 1.0))
-    np.testing.assert_allclose(crop, full[..., : g - 1], rtol=1e-5, atol=1e-4)
-    assert np.all(full[..., g - 1] == 0.0)
+    st, vals = _synthetic_slots(rng, r, k, g, 6)
+    aff = [tuple(vals[4:6])] + [None] * 5
+    full = np.asarray(transfer.p2g_slots(st, vals, aff, (r, g), 1.0))
+    crop = np.asarray(transfer.p2g_slots(st, vals, aff, (r, g - 1), 1.0))
+    np.testing.assert_array_equal(crop, full[:, : g - 1])
+    assert np.all(full[:, g - 1] == 0.0)
 
 
 def test_g2p_cropped_width_exact():
     rng = np.random.default_rng(1)
     r, k, g = 12, 128, 129
-    pdata, counts = _synthetic_pdata(rng, r, k, g, 1)
-    pdata2 = jnp.concatenate(
-        [pdata[:, :2], jnp.ones((r, 1, k), jnp.float32)], axis=1
-    )
-    grid = rng.normal(size=(r, 4, g)).astype(np.float32)
-    grid[..., g - 1] = 0.0  # the massless last column
-    full = np.asarray(tk.g2p(pdata2, counts, jnp.asarray(grid), 1.0, 4.0))
-    crop = np.asarray(
-        tk.g2p(pdata2, counts, jnp.asarray(grid[..., : g - 1]), 1.0, 4.0)
-    )
-    np.testing.assert_allclose(crop, full, rtol=1e-5, atol=1e-4)
+    st, _ = _synthetic_slots(rng, r, k, g, 1)
+    grid = rng.normal(size=(r, g, 4)).astype(np.float32)
+    grid[:, g - 1] = 0.0  # the massless last column
+    kind = KernelKind.BSPLINE
+    full = transfer.g2p_slots(st, jnp.asarray(grid), 1.0, kind)
+    crop = transfer.g2p_slots(st, jnp.asarray(grid[:, : g - 1]), 1.0, kind)
+    for a, b in zip(crop, full):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_transfer_clip_preserves_mass_for_penetrators():
@@ -94,19 +91,21 @@ def test_transfer_clip_preserves_mass_for_penetrators():
     # width loses the spill tap's mass.
     g = 129
     hi = g - 1 - int(PAD)
-    r, k = 4, 128
-    counts = np.array([1, 0, 0, 0], np.int32)
-    pdata = np.zeros((r, 14, k), np.float32)
-    pdata[0, 0, 0] = 0.5              # gx0: centered in bucket row 0
-    pdata[0, 1, 0] = hi + 0.8         # gx1: past the tap-safe band
-    pdata[0, 12, 0] = 1.0             # mass
-    raw = np.asarray(tk.p2g(jnp.asarray(pdata), jnp.asarray(counts), g - 1, 1.0))
-    assert raw[..., 4, :].sum() < 1.0 - 1e-3  # spill tap dropped
-    pdata[0, 1, 0] = hi + 0.49        # what substep's clip feeds the kernel
-    clipped = np.asarray(
-        tk.p2g(jnp.asarray(pdata), jnp.asarray(counts), g - 1, 1.0)
-    )
-    np.testing.assert_allclose(clipped[..., 4, :].sum(), 1.0, rtol=1e-6)
+    r = 4
+
+    def mass(gx1):
+        st = transfer.slot_stencil(
+            (jnp.asarray([1.0], jnp.float32), jnp.asarray([gx1], jnp.float32)),
+            jnp.asarray([True]),
+            KernelKind.BSPLINE,
+        )
+        grid = transfer.p2g_slots(
+            st, [jnp.ones((1,), jnp.float32)], [None], (r, g - 1), 1.0
+        )
+        return float(np.asarray(grid).sum())
+
+    assert mass(hi + 0.8) < 1.0 - 1e-3  # spill tap dropped
+    np.testing.assert_allclose(mass(hi + 0.49), 1.0, rtol=1e-6)
 
 
 def _setup(cfg):

@@ -3,9 +3,9 @@
 The test session itself runs on the 8-device CPU mesh (conftest), so the
 16-device coverage runs in a subprocess that pins its own virtual device
 count before touching a backend (the same self-pinning pattern as
-__graft_entry__.dryrun_multichip).  Exercises the pod-mapping meshes the
-DCN story documents in docs/PARITY.md: (4, 4) and (8, 2) slabs x pencil
-columns, with both-axis halo exchange and migration.
+__graft_entry__.dryrun_multichip).  Exercises 16-device meshes: (4, 4)
+and (8, 2) slabs x pencil columns, with both-axis halo exchange and
+migration.
 """
 
 import os

@@ -1,6 +1,6 @@
 """Per-substep agreement: JAX MLS-MPM solver vs NumPy oracle.
 
-The BASELINE.json north-star correctness requirement: the TPU solver's 2D
+The BASELINE.json north-star correctness requirement: the JAX solver's 2D
 dam-break matches the cpp_validation/mls-mpm88 reference per substep to
 1e-5 in fp32.  Tested as (a) single-substep operator agreement from fresh
 and mid-simulation states, and (b) trajectory agreement over hundreds of

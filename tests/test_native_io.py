@@ -53,16 +53,19 @@ def test_vtk_binary_roundtrip(tmp_path):
     )
 
 
-def test_driver_async_io(tmp_path):
-    """CLI production mode (--no-gif => async native writers): artifacts
+def test_driver_async_io(tmp_path, monkeypatch):
+    """CLI production mode (no GIF => async native writers): artifacts
     exist and the VTK positions match the final state."""
     import os
 
-    from mpm_flip98a_tpu.driver import main
+    from mpm_flip98a_tpu import driver
 
-    main(
+    # Keep the test session off the process-wide persistent compile cache
+    # that main() turns on (tests/test_utils_and_driver.py covers it).
+    monkeypatch.setattr(driver.compile_cache, "enable", lambda: None)
+    driver.main(
         ["--scenario", "dam2d_flip98", "--frames", "2", "--substeps", "3",
-         "--out", str(tmp_path), "--no-gif"]
+         "--out", str(tmp_path)]
     )
     movs = [d for d in os.listdir(tmp_path) if d.startswith("mov_")]
     vtks = [d for d in os.listdir(tmp_path) if d.startswith("vtk_")]

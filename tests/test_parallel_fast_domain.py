@@ -1,4 +1,4 @@
-"""Slab-sharded Pallas fast path on the virtual 8-device CPU mesh.
+"""Slab-sharded fast path on the virtual 8-device CPU mesh.
 
 Contract: same physics as the single-device fast path (models/fast2d.py)
 with O(halo) communication — exact agreement while no particle crosses a
@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 import jax
+import jax.numpy as jnp
 
 from mpm_flip98a_tpu.config import MPMConfig, TransferKind
 from mpm_flip98a_tpu.models import fast2d, scenes
@@ -34,6 +35,9 @@ FAST = MPMConfig(
 
 def _setup(cfg, n_shards=8):
     p, scene = scenes.dam_break_2d(cfg, dtype=np.float32)
+    # Particle ids ride in the material field (a single-fluid scene never
+    # reads it) so both runs can be compared particle by particle.
+    p = dataclasses.replace(p, material=jnp.arange(p.n, dtype=jnp.int32))
     mesh = make_mesh(n_shards)
     spec = FastDomainSpec.for_particles(cfg, n_shards, p, headroom=2.0)
     b = distribute(p, cfg, spec, mesh)
@@ -46,9 +50,10 @@ def _single_run(p, scene, n):
 
 
 def _sorted_xy(host):
+    # Ordered by particle id: sorting by position would let fp32
+    # summation-order noise reorder lattice particles that share x0.
     x = np.stack([host["x0"], host["x1"]], axis=-1)
-    order = np.lexsort((x[:, 1], x[:, 0]))
-    return x[order]
+    return x[np.argsort(host["mat"])]
 
 
 def test_short_run_matches_single_fast_path():

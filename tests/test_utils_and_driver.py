@@ -4,6 +4,7 @@ import dataclasses
 import os
 
 import numpy as np
+import pytest
 
 from mpm_flip98a_tpu.config import MPMConfig, TransferKind
 from mpm_flip98a_tpu.models import fast2d, scenes
@@ -178,3 +179,29 @@ def test_respec_checkpoint_resume(tmp_path):
     np.testing.assert_array_equal(sim2.positions(), sim.positions())
     sim2.run(n_frames=1, substeps_per_frame=5, gif=False, verbose=False)
     assert np.isfinite(sim2.positions()).all()
+
+
+@pytest.mark.parametrize("from_env", [True, False], ids=["env", "default"])
+def test_compile_cache_dir(monkeypatch, tmp_path, from_env):
+    # JAX_COMPILATION_CACHE_DIR wins and is left to JAX; otherwise the
+    # cache goes to the fixed <checkout>/.jax_cache.
+    import jax
+
+    from mpm_flip98a_tpu.utils import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    if from_env:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    try:
+        got = compile_cache.enable()
+        now = jax.config.jax_compilation_cache_dir
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    if from_env:
+        assert got == str(tmp_path) and now == before
+    else:
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == now == os.path.join(root, ".jax_cache")
+
